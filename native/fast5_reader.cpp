@@ -1,7 +1,7 @@
 // Native fast5 chunk iterator — dlopen-late-bound HDF5, no build-time dep.
 //
 // Reads raw (still-compressed) HDF5 chunks of fast5 signal datasets plus the
-// filter metadata needed to decode them, feeding the TPU codec's bulk corpus
+// filter metadata needed to decode them, feeding the codec's bulk corpus
 // path without h5py in the loop. The late-binding approach mirrors the
 // reference's (dead) vbz_plugin/hdf5_dynamic.h shim — here it is the live
 // production reader; the library path is supplied by the Python wrapper

@@ -5,7 +5,7 @@
 // Matches the reference perf harness's intent (vbz/perf/test_data_generator.h:
 // pseudo-signal reads): an int16 random walk that RESETS to the midpoint when
 // it leaves [lo, hi]. (An earlier bench.py used np.clip instead of a reset —
-// the walk pinned at the bounds for most samples, making the TPU workload
+// the walk pinned at the bounds for most samples, making the device workload
 // near-constant while the CPU baseline got realistic data.)
 //
 // Usage: gen_signal OUT_FILE TOTAL_MB [SIGMA=12] [LO=0] [HI=2000] [SEED=42]

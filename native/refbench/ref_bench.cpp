@@ -49,7 +49,7 @@ double time_reps(int reps, vbz_size_t (*fn)(const void*, vbz_size_t, void*,
 int main(int argc, char** argv) {
     // Usage: ref_bench [TOTAL_MB] [SIGNAL_FILE]
     // With SIGNAL_FILE (written by native/gen_signal), the workload is the
-    // byte-identical stream bench.py times on the TPU.
+    // byte-identical stream the other benchmarks time.
     size_t total_mb = argc > 1 ? std::strtoul(argv[1], nullptr, 10) : 64;
     size_t total = total_mb << 20;
     std::vector<int16_t> signal;

@@ -4,7 +4,7 @@
 // (reference: vbz/perf/vbz_perf.cpp:145-171): times compress and decompress
 // over a pseudo-signal workload (read lengths uniform in [30k, 200k) samples,
 // matching vbz/perf/test_data_generator.h:28-74) and prints bytes/second.
-// The TPU bench (bench.py) uses this as the measured CPU baseline.
+// The measured single-core CPU baseline.
 
 #include <chrono>
 #include <cinttypes>

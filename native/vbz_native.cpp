@@ -1,9 +1,9 @@
-// vbz_native — native C++ runtime codec for the TPU-native VBZ framework.
+// vbz_native — native C++ runtime codec for the VBZ framework.
 //
 // A from-scratch scalar implementation of the VBZ pipeline with the exact
 // C ABI of the reference library (reference: vbz/vbz.h:56-141). It backs the
 // HDF5 filter plugin (vbz_plugin.cpp) and serves as the single-core CPU
-// baseline the TPU data plane is benchmarked against.
+// baseline the device data plane is compared with.
 //
 // Wire-format semantics mirror the reference (see SURVEY.md §2 and the
 // Python oracle vbz_compression_tpu/ops/scalar.py):

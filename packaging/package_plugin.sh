@@ -61,7 +61,7 @@ Version: $VERSION
 Architecture: $ARCH
 Maintainer: vbz_compression_tpu
 Depends: libzstd1 | libzstd
-Description: HDF5 filter plugin (id 32020) for the TPU-native VBZ codec
+Description: HDF5 filter plugin (id 32020) for the VBZ codec
  Registers the vbz filter so h5py/h5repack/HDFView transparently read and
  write VBZ-compressed fast5 datasets.
 CTRL

@@ -2,13 +2,14 @@
 must agree byte-for-byte with the per-chunk pipeline for every backend and
 option combination (BASELINE config: bulk multi-read batch)."""
 
+import os
+import subprocess
+
 import numpy as np
 import pytest
 
 from vbz_compression_tpu import api
-from vbz_compression_tpu.models.codec import jax_backend, pallas_backend
 from vbz_compression_tpu.options import CompressionOptions
-from vbz_compression_tpu.ops import scalar
 
 
 def _chunks(dtype, k=5, seed=0):
@@ -27,17 +28,26 @@ def _chunks(dtype, k=5, seed=0):
     return out
 
 
-BACKENDS = [("scalar", scalar), ("jax", jax_backend),
-            ("pallas", pallas_backend)]
+NATIVE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
 
 
-@pytest.mark.parametrize("backend_name,backend", BACKENDS)
+@pytest.fixture(scope="module")
+def backends():
+    subprocess.run(["make", "-C", NATIVE, "-s", "libvbz_native.so"],
+                   check=True)
+    return {name: api._backend_by_name(name)
+            for name in ("scalar", "device", "native")}
+
+
+@pytest.mark.parametrize("backend_name", ["scalar", "device", "native"])
 @pytest.mark.parametrize("dtype,int_size,zigzag", [
     (np.int16, 2, True), (np.uint32, 4, False), (np.int8, 1, True),
 ])
 @pytest.mark.parametrize("level,version", [(0, 0), (1, 0), (1, 1)])
-def test_batch_matches_per_chunk(backend_name, backend, dtype, int_size,
+def test_batch_matches_per_chunk(backends, backend_name, dtype, int_size,
                                  zigzag, level, version):
+    backend = backends[backend_name]
     opts = CompressionOptions(zigzag, int_size, level, version)
     chunks = _chunks(dtype, k=3)
     batch = api.vbz_compress_sized_batch(chunks, opts, backend=backend)

@@ -11,17 +11,14 @@ from vbz_compression_tpu.parallel import multihost
 TEST_DATA = "/root/reference/test_data"
 
 
-@pytest.mark.parametrize("plane", ["xla", "pallas"])
-def test_compress_signals_matches_api(plane):
-    """Both device planes must produce byte-identical sized streams vs the
-    single-chunk api path. The random +-3000 signals overflow the Pallas
-    compact budget on every row, so the pallas case also exercises the
-    per-row general-kernel fallback."""
+def test_compress_signals_matches_api():
+    """The mesh plane must produce byte-identical sized streams vs the
+    single-chunk api path, across several length buckets."""
     rng = np.random.default_rng(0)
     signals = [rng.integers(-3000, 3000, n, dtype=np.int16)
                for n in (5000, 12_000, 130_000, 7)]
     opts = CompressionOptions(True, 2, 1, 0)
-    streams = multihost.compress_signals(signals, opts, plane=plane)
+    streams = multihost.compress_signals(signals, opts)
     assert len(streams) == len(signals)
     for sig, stream in zip(signals, streams):
         ref = api.vbz_compress_sized(sig, opts)
@@ -30,53 +27,83 @@ def test_compress_signals_matches_api(plane):
         np.testing.assert_array_equal(np.frombuffer(out, np.int16), sig)
 
 
-def test_overflow_fallback_batched(monkeypatch):
-    """A majority-overflow bucket re-encodes ALL overflowing rows in ONE
-    batched general-kernel call, not a per-row device-call loop (a dense
-    corpus would otherwise degrade to B dispatches — VERDICT r4 #7)."""
-    from vbz_compression_tpu.ops import pallas_dense as pcd
+@pytest.mark.parametrize("isz,zigzag,level,version", [
+    (1, True, 1, 0), (1, False, 0, 0), (4, True, 1, 0), (4, False, 0, 0),
+    (2, False, 1, 0), (1, True, 0, 1), (1, False, 1, 1)])
+def test_compress_signals_flavors(isz, zigzag, level, version):
+    """Every flavor of the lattice through the corpus driver, byte-identical
+    to the single-chunk api path, in input order."""
+    dtype = {1: np.int8, 2: np.int16, 4: np.int32}[isz]
+    rng = np.random.default_rng(isz + 2 * version)
+    info = np.iinfo(dtype)
+    signals = [rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+               for n in (3, 4096, 9000, 5000)]
+    opts = CompressionOptions(zigzag, isz, level, version)
+    streams = multihost.compress_signals(signals, opts)
+    assert streams == [api.vbz_compress_sized(s, opts) for s in signals]
 
-    general_calls = []
-    orig = pcd.encode_w2_dense_rows_flat
 
-    def counting(x2, batch, **kw):
-        general_calls.append(batch)
-        return orig(x2, batch, **kw)
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_compress_signals_splits_calls(monkeypatch, ndev):
+    """A bucket whose streams pass the per-call budget runs as several
+    device calls of whole device-count multiples, with the same frames in
+    input order."""
+    import jax
 
-    monkeypatch.setattr(pcd, "encode_w2_dense_rows_flat", counting)
-    rng = np.random.default_rng(3)
-    signals = [rng.integers(-30000, 30000, 20_000, dtype=np.int16)
-               for _ in range(5)]
+    from vbz_compression_tpu.ops import jax_svb
+    from vbz_compression_tpu.parallel import sharded
+
+    rng = np.random.default_rng(ndev)
+    signals = [rng.integers(-3000, 3000, n, dtype=np.int16)
+               for n in (5000, 6000, 9, 7000, 8000, 4096, 40_000)]
     opts = CompressionOptions(True, 2, 1, 0)
-    streams = multihost.compress_signals(signals, opts, plane="pallas")
-    assert general_calls == [5], general_calls
-    for sig, stream in zip(signals, streams):
-        assert stream == api.vbz_compress_sized(sig, opts)
-        out = api.vbz_decompress_sized(stream, opts)
-        np.testing.assert_array_equal(np.frombuffer(out, np.int16), sig)
+    rows = []
+    encode = sharded.batch_encode_sharded
+
+    def spy(x, lengths, **kw):
+        rows.append(x.shape[0])
+        return encode(x, lengths, **kw)
+
+    # Room for three rows of the 8192 bucket per call.
+    monkeypatch.setattr(multihost, "_CALL_STREAM_BYTES",
+                        3 * jax_svb.stream_capacity(8192, 2, True, 0))
+    monkeypatch.setattr(sharded, "batch_encode_sharded", spy)
+    streams = multihost.compress_signals(
+        signals, opts, mesh=sharded.make_mesh(jax.devices()[:ndev]))
+    assert streams == [api.vbz_compress_sized(s, opts) for s in signals]
+    # Buckets in order of first use: 8192 (4 reads, 3 rows per call on one
+    # device, 2 on two), 4096 (2 reads, one call), 65536 (over budget: one
+    # row per device).
+    assert rows == {1: [3, 1, 2, 1], 2: [2, 2, 2, 2]}[ndev]
 
 
-def test_compress_signals_pallas_compact():
-    """Smooth signal rows stay on the compact batched-grid kernels (no
-    overflow fallback) and still match the api streams byte-for-byte."""
+def test_compress_signals_four_devices():
+    """A 4-device mesh gives the same frames, in order, as one device."""
+    import jax
+
+    from vbz_compression_tpu.parallel import sharded
+
     rng = np.random.default_rng(1)
     signals = [np.clip(500 + np.cumsum(rng.normal(0, 12, n)), -2000,
                        2000).astype(np.int16)
-               for n in (30_000, 70_000, 16_384)]
+               for n in (30_000, 70_000, 16_384, 5, 40_000)]
     opts = CompressionOptions(True, 2, 1, 0)
-    streams = multihost.compress_signals(signals, opts, plane="pallas")
-    for sig, stream in zip(signals, streams):
+    four = multihost.compress_signals(
+        signals, opts, mesh=sharded.make_mesh(jax.devices()[:4]))
+    one = multihost.compress_signals(
+        signals, opts, mesh=sharded.make_mesh(jax.devices()[:1]))
+    assert four == one
+    for sig, stream in zip(signals, four):
         assert stream == api.vbz_compress_sized(sig, opts)
 
 
 @pytest.mark.skipif(not os.path.isdir(TEST_DATA),
                     reason="reference test_data not mounted")
 @pytest.mark.slow
-@pytest.mark.parametrize("plane", ["auto", "pallas"])
-def test_compress_corpus(tmp_path, plane):
+def test_compress_corpus(tmp_path):
     stats = multihost.compress_corpus(
         [os.path.join(TEST_DATA, "multi_fast5_zip.fast5")],
-        out_dir=str(tmp_path), plane=plane)
+        out_dir=str(tmp_path))
     assert stats.files == 1
     assert stats.reads == 10
     assert stats.raw_bytes == 3_097_862
@@ -91,9 +118,8 @@ def test_compress_corpus(tmp_path, plane):
 def test_two_process_corpus(tmp_path):
     """REAL 2-process jax.distributed run: two spawned processes, each with
     its own 4-device CPU mesh, split the corpus round-robin and allgather
-    global stats over the distributed backend (the DCN analog). Every
-    process must report identical global totals. VBZ_PLANE=pallas drives
-    the production codec5 kernels (interpret mode) end to end."""
+    global stats over the distributed backend. Every process must report
+    identical global totals."""
     import json
     import shutil
     import socket
@@ -110,7 +136,7 @@ def test_two_process_corpus(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=repo, VBZ_PLANE="pallas")
+               PYTHONPATH=repo)
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(repo, "tools", "multihost_smoke.py"),
          f"localhost:{port}", "2", str(pid), str(tmp_path), src, second],

@@ -1,9 +1,9 @@
 """Multi-device data-parallel codec tests on the virtual 8-device CPU mesh."""
 
 import numpy as np
+import pytest
 
 import jax
-import jax.numpy as jnp
 
 from vbz_compression_tpu.ops import scalar
 from vbz_compression_tpu.parallel import sharded
@@ -54,23 +54,42 @@ def test_entry_compiles():
     assert int(total) > 0
 
 
-def test_pallas_sharded_roundtrip():
-    """Pallas data plane under shard_map (interpret mode on the CPU mesh):
-    codec5 batched-grid kernels over the 8-device mesh."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    mesh = sharded.make_mesh()
-    rng = np.random.default_rng(0)
-    B, N = 8, 2048
-    sig = np.clip(500 + np.cumsum(rng.normal(0, 12, (B, N)), axis=1),
-                  -2000, 2000).astype(np.int16)
-    with pltpu.force_tpu_interpret_mode():
-        k5, d5, l5, t5, novf = sharded.batch_encode_sharded_pallas5(
-            jnp.asarray(sharded.flatten_rows(sig)), mesh=mesh, batch=B,
-            block=512, slack=256)
-        out5 = sharded.batch_decode_sharded_pallas5(
-            k5, d5, mesh=mesh, batch=B, block=512, slack=256)
-    assert int(np.asarray(novf).sum()) == 0
-    np.testing.assert_array_equal(
-        np.asarray(out5).reshape(B, N), sig)
-    assert int(t5) == int(np.asarray(l5).sum()) + B * N // 4
+@pytest.mark.parametrize("isz,zigzag,version", [
+    (2, True, 0), (2, False, 0), (1, True, 0), (1, False, 0), (4, True, 0),
+    (4, False, 0), (1, True, 1), (1, False, 1)])
+def test_four_device_mesh_matches_one_device(isz, zigzag, version):
+    """The XLA mesh plane on 4 devices: shards land on 4 distinct devices,
+    frames equal the 1-device mesh's in order, the psum total is the sum of
+    the frame lengths, and every row decodes."""
+    dtype = {1: np.int8, 2: np.int16, 4: np.int32}[isz]
+    devices = jax.devices()[:4]
+    mesh4, mesh1 = sharded.make_mesh(devices), sharded.make_mesh(devices[:1])
+    rng = np.random.default_rng(isz * 10 + version)
+    info = np.iinfo(dtype)
+    chunks = [rng.integers(info.min, info.max, int(rng.integers(1, 1025)),
+                           dtype=dtype, endpoint=True) for _ in range(8)]
+    batch, lens = sharded.pad_chunks(chunks, pad_to=1024)
+    out = {}
+    for name, mesh in (("four", mesh4), ("one", mesh1)):
+        xb = sharded.shard_batch(mesh, batch)
+        streams, stream_lens, total = sharded.batch_encode_sharded(
+            xb, sharded.shard_batch(mesh, lens), mesh=mesh, integer_size=isz,
+            use_zigzag=zigzag, version=version)
+        out[name] = (streams, np.asarray(stream_lens), int(total))
+    streams4, lens4, total4 = out["four"]
+    assert {s.device for s in streams4.addressable_shards} == set(devices)
+    assert np.array_equal(np.asarray(streams4), np.asarray(out["one"][0]))
+    assert np.array_equal(lens4, out["one"][1])
+    assert total4 == lens4.sum()
+    s4 = np.asarray(streams4)
+    for i, c in enumerate(chunks):
+        assert s4[i, : lens4[i]].tobytes() == scalar.svb_compress(
+            c, isz, zigzag, version)
+    dec, ok = sharded.batch_decode_sharded(
+        streams4, sharded.shard_batch(mesh4, lens),
+        sharded.shard_batch(mesh4, lens4), mesh=mesh4, integer_size=isz,
+        use_zigzag=zigzag, out_n=1024, version=version)
+    assert np.asarray(ok).all()
+    dec = np.asarray(dec)
+    for i, c in enumerate(chunks):
+        np.testing.assert_array_equal(dec[i, : c.size], c)

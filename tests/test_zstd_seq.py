@@ -92,7 +92,7 @@ def test_match_finder_properties():
 
 
 # ---------------------------------------------------------------------------
-# TPU match finder (bounded-offset compare scan)
+# Device match finder (bounded-offset compare scan)
 # ---------------------------------------------------------------------------
 
 from vbz_compression_tpu.ops import zstd_match_tpu  # noqa: E402

@@ -1,8 +1,7 @@
-"""vbz_compression_tpu — TPU-native VBZ codec framework.
+"""vbz_compression_tpu — VBZ codec framework with an accelerator data plane.
 
 A from-scratch re-design of the VBZ lossless signal codec
-(delta → zig-zag → StreamVByte → zstd) for TPU hardware: JAX/XLA/Pallas for
-the data plane, a native C++ runtime for the HDF5 filter plugin, and
+(delta → zig-zag → StreamVByte → zstd): JAX/XLA for the device data plane, a native C++ runtime for the HDF5 filter plugin, and
 ``jax.sharding`` data-parallelism over device meshes for bulk corpus work.
 """
 

@@ -3,11 +3,11 @@
 Mirrors the reference core pipeline (``vbz/vbz.cpp``): option validation,
 v0/v1 version dispatch, the optional StreamVByte stage, the optional zstd
 stage, and the 4-byte little-endian sized framing. The StreamVByte stage is
-pluggable: the NumPy oracle backend (:mod:`.ops.scalar`) or the JAX/Pallas
-TPU backend (:mod:`.models.codec`).
+pluggable: the NumPy oracle (:mod:`.ops.scalar`), the native C++ codec
+(:mod:`.native_backend`) or the XLA device plane (:mod:`.models.codec`).
 
-The zstd stage is host-side (libzstd via the ``zstandard`` package) in this
-layer — frame-compatible with the reference (``ZSTD_compress`` /
+The zstd stage is host-side: the system libzstd through :mod:`.zstd`,
+frame-compatible with the reference (``ZSTD_compress`` /
 ``ZSTD_getFrameContentSize`` semantics, ``vbz/vbz.cpp:194-273``).
 """
 
@@ -21,21 +21,20 @@ import numpy as np
 from .errors import (
     VBZ_DESTINATION_SIZE_ERROR,
     VBZ_INPUT_SIZE_ERROR,
-    VBZ_ZSTD_ERROR,
     VbzError,
 )
+from . import zstd
 from .options import CompressionOptions
 from .ops import scalar
 
 SIZED_HEADER_BYTES = 4  # VbzSizedHeader{uint32 original_size}, vbz/vbz.cpp:52-55
 
 # ---------------------------------------------------------------------------
-# Backend auto-selection: Pallas-on-TPU -> native C++ -> NumPy oracle.
-# Every public entry point takes backend=None meaning "the fastest available"
-# (the reference has a single code path; we have four, so the default must
-# pick the right one — a Quick-start user should hit the TPU plane, not the
-# oracle). Override per-call with backend=..., or globally with VBZ_BACKEND
-# in {auto, pallas, native, jax, scalar}.
+# Backend selection. Every public entry point takes backend=None meaning "the
+# default": the XLA device plane when JAX's default device is a GPU, else the
+# native C++ codec, else the NumPy oracle. Override per call with
+# backend=..., or for the process with VBZ_BACKEND in
+# {auto, device, native, scalar}.
 # ---------------------------------------------------------------------------
 
 _AUTO_BACKEND = None
@@ -43,11 +42,7 @@ _AUTO_BACKEND = None
 
 def default_backend():
     """Resolve (once) the backend used when a call passes ``backend=None``.
-
-    Order: the Pallas TPU backend when an accelerator is visible (it falls
-    back internally to the native codec for paths the kernels don't cover),
-    else the native C++ codec, else the NumPy oracle. ``VBZ_BACKEND`` forces
-    a specific backend by name."""
+    ``VBZ_BACKEND`` forces a specific backend by name."""
     global _AUTO_BACKEND
     forced = os.environ.get("VBZ_BACKEND", "auto").lower()
     if forced not in ("", "auto"):
@@ -65,31 +60,22 @@ def _backend_by_name(name: str):
 
         native_backend.lib()
         return native_backend.NativeSvbBackend()
-    if name == "jax":
-        from .models.codec import JaxSvbBackend
+    if name == "device":
+        from .models.codec import DeviceSvbBackend
 
-        return JaxSvbBackend()
-    if name == "pallas":
-        from .models.codec import PallasSvbBackend
-
-        return PallasSvbBackend()
+        return DeviceSvbBackend()
     raise ValueError(f"unknown VBZ_BACKEND {name!r} "
-                     "(want auto|pallas|native|jax|scalar)")
+                     "(want auto|device|native|scalar)")
 
 
 def _resolve_auto_backend():
-    try:
-        import jax
+    import jax
 
-        if jax.devices()[0].platform in ("tpu", "gpu"):
-            from .models.codec import PallasSvbBackend
-
-            return PallasSvbBackend()
-    except Exception:
-        pass
+    if jax.devices()[0].platform == "gpu":
+        return _backend_by_name("device")
     try:
         return _backend_by_name("native")
-    except Exception:
+    except ImportError:  # libvbz_native.so not built
         return scalar
 
 
@@ -116,8 +102,8 @@ def zstd_compress_bound(source_size: int) -> int:
 
 def zstd_compress(data: bytes, level: int, encoder: str | None = None) -> bytes:
     """zstd stage. ``encoder`` (or env ``VBZ_ZSTD_ENCODER``):
-    - "libzstd" (default): the zstandard package, with the tuned level-1
-      dfast profile below;
+    - "libzstd" (default): the system library (:mod:`.zstd`), with a tuned
+      level-1 dfast profile;
     - "own": the from-scratch RFC 8878 encoder (:mod:`.ops.zstd_seq` —
       Huffman literals + LZ77 matches + FSE sequences);
     - "own-tpu": same, with the match scan on the accelerator
@@ -143,53 +129,17 @@ def zstd_compress(data: bytes, level: int, encoder: str | None = None) -> bytes:
 
         return zstd_seq.compress_frame(
             bytes(data), matcher="tpu" if encoder == "own-tpu" else "host")
-    import zstandard
-
-    level = max(min(int(level), zstandard.MAX_COMPRESSION_LEVEL), -131072)
-    try:
-        if level == 1:
-            # Level-1 profile tuned on the signal corpus: double-fast matcher
-            # with a 512 KiB window compresses StreamVByte payloads tighter
-            # than stock level 1 (and tighter than the reference's zstd-1.4.8
-            # level 1) at equivalent speed. The zstd level is an encoder-only
-            # knob — decode compatibility is unaffected.
-            params = zstandard.ZstdCompressionParameters(
-                window_log=19, chain_log=14, hash_log=16, search_log=1,
-                min_match=5, target_length=0,
-                strategy=zstandard.STRATEGY_DFAST,
-                write_checksum=0, write_content_size=1)
-            cctx = zstandard.ZstdCompressor(compression_params=params)
-        else:
-            cctx = zstandard.ZstdCompressor(
-                level=level, write_checksum=False, write_content_size=True)
-        return cctx.compress(data)
-    except zstandard.ZstdError as exc:  # pragma: no cover
-        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
+    return zstd.compress(data, level)
 
 
 def zstd_frame_content_size(data: bytes) -> int:
     """``ZSTD_getFrameContentSize`` equivalent; raises VBZ_ZSTD_ERROR when the
     frame is invalid or the content size is unknown (``vbz/vbz.cpp:236-240``)."""
-    import zstandard
-
-    try:
-        params = zstandard.get_frame_parameters(data)
-    except zstandard.ZstdError as exc:
-        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
-    if params.content_size in (zstandard.CONTENTSIZE_UNKNOWN,
-                               zstandard.CONTENTSIZE_ERROR):
-        raise VbzError(VBZ_ZSTD_ERROR, "unknown frame content size")
-    return int(params.content_size)
+    return zstd.frame_content_size(data)
 
 
 def zstd_decompress(data: bytes, expected_size: int) -> bytes:
-    import zstandard
-
-    try:
-        dctx = zstandard.ZstdDecompressor()
-        return dctx.decompress(data, max_output_size=max(expected_size, 1))
-    except zstandard.ZstdError as exc:
-        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
+    return zstd.decompress(data, expected_size)
 
 
 # ---------------------------------------------------------------------------

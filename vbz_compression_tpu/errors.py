@@ -1,4 +1,4 @@
-"""Error taxonomy for the TPU-native VBZ codec.
+"""Error taxonomy for the VBZ codec.
 
 Mirrors the reference C ABI error space (reference: ``vbz/vbz.h:13-27``):
 ``vbz_size_t`` is uint32 and errors live at the top of its range,

@@ -1,6 +1,6 @@
 """From-scratch zstd-frame encoder: Huffman-literals blocks (RFC 8878).
 
-This is stage one of the TPU-resident entropy coder (SURVEY.md §7 step 3b):
+This is stage one of the device-resident entropy coder (SURVEY.md §7 step 3b):
 a zstd *frame* writer whose compressed blocks use order-0 Huffman coding of
 the whole block as literals with zero sequences. Any stock zstd decoder
 (including the reference's ``ZSTD_decompress``) reads these frames — frame
@@ -25,7 +25,7 @@ values are ranked by (nbits, symbol) and codes count down from the top of
 each bit-length band; see build_codes().
 
 The bit-packing step reuses the codec's prefix-sum machinery and is
-expressible on TPU; the NumPy path here is the oracle.
+expressible on the accelerator; the NumPy path here is the oracle.
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def _check_implied_weight(weights: np.ndarray, max_bits: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Bitstream packing (NumPy oracle; TPU path mirrors this with prefix sums)
+# Bitstream packing (NumPy oracle; device path mirrors this with prefix sums)
 # ---------------------------------------------------------------------------
 
 

@@ -11,7 +11,7 @@ reference pipeline consumes them through ``ZSTD_decompress``
 
 The match finder is NumPy-vectorized (hash of every 4-byte window, last
 previous occurrence via a stable lexsort, greedy scan that only visits
-verified candidate positions) — the host-side oracle for a future TPU
+verified candidate positions) — the host-side oracle for a future device
 rolling-hash kernel.
 """
 

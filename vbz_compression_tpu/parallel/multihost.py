@@ -1,13 +1,12 @@
 """Multi-host corpus driver.
 
-Scales the codec from one host to a pod slice: each process compresses its
+Scales the codec from one host to several: each process compresses its
 round-robin share of fast5 files on its local devices (data-parallel mesh,
 :mod:`.sharded`), and global corpus statistics are combined with a
-``process_allgather`` over DCN. The reference has no distributed runtime at
-all (its parallelism is ``xargs -P`` over files, reference README.md:36-40) —
-this module is the TPU-native replacement.
+``process_allgather``. The reference has no distributed runtime at all (its
+parallelism is ``xargs -P`` over files, reference README.md:36-40).
 
-Usage on each host of a slice:
+Usage on each host:
 
     from vbz_compression_tpu.parallel import multihost
     multihost.initialize()            # jax.distributed under the hood
@@ -24,6 +23,8 @@ import numpy as np
 import jax
 
 from .. import api
+from ..models import codec
+from ..ops import jax_svb
 from ..options import CompressionOptions
 from ..utils import hdf5_chunks
 from . import sharded
@@ -60,183 +61,66 @@ def _local_share(paths: list[str]) -> list[str]:
     return [p for i, p in enumerate(sorted(paths)) if i % nproc == pid]
 
 
-# Pallas-plane block limits (see models/codec.py: the in-kernel MXU key
-# pack needs block >= 16384 on hardware; 64K blocks amortize best).
-_PALLAS_MIN_BLOCK = 16384
-_PALLAS_MAX_BLOCK = 65536
-_PALLAS_SLACK = 2048
+_DTYPE_FOR_SIZE = {1: np.int8, 2: np.int16, 4: np.int32}
 
-# JAX interpret-mode ceilings (probed 2026-08-21, JAX 0.9): the shared-
-# memory emulation DEADLOCKS for multi-device meshes once per-row buffers
-# pass ~32K values (threads block in _allocate_buffer while others hold
-# the interpreter's global barrier), and 64K-block kernels hang even
-# single-device (32K interprets in ~3 s, 64K never returns). These are
-# interpreter limitations, not kernel bugs — re-probe on a JAX upgrade
-# (tools/multihost_smoke.py exercises both paths off-TPU).
-_INTERPRET_LIMITS = {
-    "probed": "2026-08-21 / jax 0.9",
-    "multi_device_max_bucket": 32768,   # larger buckets -> 1-device sub-mesh
-    "max_block": 32768,                 # off-TPU block cap
-}
-
-
-def _pallas_plane(options: CompressionOptions, plane: str) -> bool:
-    """The production Pallas (codec5) sharded plane covers the v0 int16
-    zig-zag hot path; other option combinations ride the XLA plane."""
-    if plane == "xla":
-        return False
-    hot = (options.vbz_version == 0 and options.integer_size == 2
-           and options.perform_delta_zig_zag)
-    if plane == "pallas":
-        return hot
-    return hot and jax.devices()[0].platform == "tpu"
-
-
-def _assemble_svb(keys_row: np.ndarray, data_row: np.ndarray,
-                  n: int) -> bytes:
-    """Wire-format v0 stream from a kernel key/data row pair: keys trimmed
-    to (n+3)/4 (edge padding guarantees zero trailing key bits,
-    streamvbyte_encode's key layout) and the data section to n + E(n)."""
-    key_len = (n + 3) // 4
-    keys_np = keys_row[:key_len]
-    codes = (np.repeat(keys_np, 4) >> np.tile(
-        np.array([0, 2, 4, 6], np.uint8), key_len)) & 3
-    data_len = int(np.minimum(codes[:n], 1).astype(np.int64).sum()) + n
-    return keys_np.tobytes() + data_row[:data_len].tobytes()
+# Most stream bytes one device call of the corpus driver lays out. It bounds
+# the call's device memory and host transfer, and keeps the call's int32
+# total of stream lengths exact.
+_CALL_STREAM_BYTES = 1 << 30
 
 
 def compress_signals(signals: list[np.ndarray],
                      options: CompressionOptions | None = None,
-                     mesh=None, bucket: int = 1 << 17,
-                     plane: str = "auto", block: int | None = None,
-                     slack: int = _PALLAS_SLACK) -> list[bytes]:
-    """Compress a list of int16 signals on the local device mesh and return
-    sized vbz streams in input order.
+                     mesh=None) -> list[bytes]:
+    """Compress a list of signals on the local device mesh and return sized
+    vbz streams in input order, byte-identical to
+    :func:`..api.vbz_compress_sized`.
 
-    Signals are bucketed by padded length so each bucket is one batched
-    device call. On the v0 int16 zig-zag hot path the bucket runs through
-    the chip-validated codec5 Pallas plane
-    (:func:`..parallel.sharded.batch_encode_sharded_pallas5` — batched-grid
-    kernels, int8 data plane); rows whose content overflows the compact
-    slack budget are re-encoded through the general kernel. Other option
-    combinations use the XLA plane. The zstd stage runs host-side,
-    threaded across the bucket's payloads.
-
-    ``plane`` forces a data plane ("pallas"/"xla"; "auto" picks Pallas on
-    TPU) and ``block``/``slack`` override the kernel geometry — both exist
-    for interpret-mode tests; production callers leave the defaults.
+    Signals are bucketed by padded length (:func:`..models.codec.bucket_size`)
+    and each bucket runs as batched calls of the mesh plane
+    (:func:`.sharded.batch_encode_sharded`), each laying out at most
+    ``_CALL_STREAM_BYTES`` of streams. The zstd stage runs host-side,
+    threaded across a call's payloads.
     """
     import struct
 
     options = options or CompressionOptions(True, 2, 1, 0)
+    options.validate().validate_version()
+    dtype = _DTYPE_FOR_SIZE[options.integer_size]
+    width = np.dtype(dtype).itemsize
     mesh = mesh or sharded.make_mesh(jax.local_devices())
-    ndev = len(mesh.devices.reshape(-1))
-    use_pallas = _pallas_plane(options, plane)
+    ndev = mesh.devices.size
 
     out: list[bytes | None] = [None] * len(signals)
     by_bucket: dict[int, list[int]] = {}
-    min_b = block or (_PALLAS_MIN_BLOCK if use_pallas else 4096)
     for i, s in enumerate(signals):
-        b = max(min_b, 4096,
-                1 << (max(int(s.size) - 1, 1).bit_length()))
-        by_bucket.setdefault(b, []).append(i)
+        by_bucket.setdefault(codec.bucket_size(s.size), []).append(i)
 
-    on_tpu = jax.devices()[0].platform == "tpu"
+    calls = []
     for b, idxs in by_bucket.items():
-        # Off-TPU the Pallas kernels run in interpret mode, whose shared-
-        # memory emulation DEADLOCKS for multi-device meshes once per-row
-        # buffers grow past ~32K values (probed 2026-08-21: threads block in
-        # _allocate_buffer while others hold the global barrier — a JAX
-        # interpret limitation, not a kernel bug). Big buckets therefore run
-        # on a 1-device sub-mesh there; wire output is mesh-independent, and
-        # the multi-device interpret path stays covered by the small-bucket
-        # case (and by test_sharded/dryrun_multichip).
-        bmesh = mesh
-        if use_pallas and not on_tpu and ndev > 1 \
-                and b > _INTERPRET_LIMITS["multi_device_max_bucket"]:
-            bmesh = sharded.make_mesh(mesh.devices.reshape(-1)[:1])
-        ndev_b = len(bmesh.devices.reshape(-1))
+        capacity = jax_svb.stream_capacity(
+            b, options.integer_size, options.perform_delta_zig_zag,
+            options.vbz_version)
+        rows = max(1, _CALL_STREAM_BYTES // capacity // ndev) * ndev
+        calls += [(b, idxs[k: k + rows]) for k in range(0, len(idxs), rows)]
+
+    for b, idxs in calls:
         # Pad the batch to a multiple of the device count.
         batch_idx = list(idxs)
-        while len(batch_idx) % ndev_b:
+        while len(batch_idx) % ndev:
             batch_idx.append(idxs[-1])
-        chunks = [signals[i].astype(np.int16) for i in batch_idx]
-        if use_pallas:
-            import contextlib
-
-            from jax.experimental.pallas import tpu as pltpu
-
-            # Off-TPU (the CPU test mesh) the kernels run in interpret mode;
-            # on hardware this context is a no-op and Mosaic compiles them.
-            # (A factory: generator-based context managers are single-use.)
-            def ctx():
-                return (contextlib.nullcontext() if on_tpu
-                        else pltpu.force_tpu_interpret_mode())
-
-            # Hardware keeps 64K; off-TPU the interpreter caps the block
-            # (see _INTERPRET_LIMITS).
-            max_blk = (_PALLAS_MAX_BLOCK if on_tpu
-                       else _INTERPRET_LIMITS["max_block"])
-            blk = block or min(max_blk, b)
-            # Edge padding → pad deltas are 0 → code-0 key bits, which the
-            # wire-format trim in _assemble_svb relies on.
-            batch, _lens = sharded.pad_chunks(chunks, pad_to=b, mode="edge")
-            Bb = batch.shape[0]
-            with ctx():
-                keys, data, _dlens, _total, ovf = \
-                    sharded.batch_encode_sharded_pallas5(
-                        sharded.shard_batch(
-                            bmesh, sharded.flatten_rows(batch)),
-                        mesh=bmesh, batch=Bb, block=blk, slack=slack)
-            ovf_np = np.asarray(ovf)
-            # Kernel-native flat outputs -> per-row views (free on host).
-            keys_np = np.asarray(keys).reshape(Bb, b // 4)
-            data_np = np.asarray(data).reshape(Bb, -1)
-
-            # Compact-budget overflow (dense content): ONE batched call
-            # over exactly the overflowing rows through the round-5 dense
-            # leftward network (no overflow concept; same wire format;
-            # hard-content enc +39% over the general kernel and batched
-            # +40% over per-row — tools/ab_dense.py). A per-row
-            # device-call loop here degraded mostly-incompressible
-            # corpora to B dispatches (VERDICT r4 #7).
-            ovf_rows = [row for row in range(len(idxs)) if ovf_np[row]]
-            kg_np = dg_np = None
-            if ovf_rows:
-                from ..ops import pallas_dense as pcd
-
-                import jax.numpy as jnp
-
-                Bo = len(ovf_rows)
-                xg = np.ascontiguousarray(batch[ovf_rows])
-                with ctx():
-                    kg, dg, _lens_g = pcd.encode_w2_dense_rows_flat(
-                        jnp.asarray(xg.reshape(Bo * b // 128, 128)), Bo,
-                        block=blk)
-                kg_np = np.asarray(kg).reshape(Bo, b // 4)
-                dg_np = np.asarray(dg).reshape(Bo, -1)
-            ovf_pos = {row: j for j, row in enumerate(ovf_rows)}
-
-            svbs = []
-            for row, i in enumerate(batch_idx[: len(idxs)]):
-                if row in ovf_pos:
-                    j = ovf_pos[row]
-                    svbs.append(_assemble_svb(
-                        kg_np[j], dg_np[j], signals[i].size))
-                else:
-                    svbs.append(_assemble_svb(
-                        keys_np[row], data_np[row], signals[i].size))
-        else:
-            batch, lens = sharded.pad_chunks(chunks, pad_to=b)
-            streams, stream_lens, _total = sharded.batch_encode_sharded(
-                sharded.shard_batch(mesh, batch),
-                sharded.shard_batch(mesh, lens),
-                mesh=mesh, integer_size=options.integer_size,
-                use_zigzag=options.perform_delta_zig_zag)
-            streams_np = np.asarray(streams)
-            lens_np = np.asarray(stream_lens)
-            svbs = [streams_np[row, : lens_np[row]].tobytes()
-                    for row in range(len(idxs))]
+        chunks = [np.asarray(signals[i]).astype(dtype, copy=False)
+                  for i in batch_idx]
+        batch, lens = sharded.pad_chunks(chunks, pad_to=b)
+        streams, stream_lens, _total = sharded.batch_encode_sharded(
+            sharded.shard_batch(mesh, batch),
+            sharded.shard_batch(mesh, lens),
+            mesh=mesh, integer_size=options.integer_size,
+            use_zigzag=options.perform_delta_zig_zag,
+            version=options.vbz_version)
+        streams_np, lens_np = jax.device_get((streams, stream_lens))
+        svbs = [streams_np[row, : lens_np[row]].tobytes()
+                for row in range(len(idxs))]
 
         if options.zstd_compression_level:
             payloads = api._map_zstd(
@@ -244,18 +128,17 @@ def compress_signals(signals: list[np.ndarray],
                     s, options.zstd_compression_level), svbs)
         else:
             payloads = svbs
-        for i, payload in zip(batch_idx[: len(idxs)], payloads):
-            out[i] = struct.pack("<I", signals[i].nbytes) + bytes(payload)
-    return [o for o in out if o is not None]
+        for i, payload in zip(idxs, payloads):
+            out[i] = struct.pack("<I", width * signals[i].size) \
+                + bytes(payload)
+    return out
 
 
 def compress_corpus(paths: list[str], out_dir: str | None = None,
-                    options: CompressionOptions | None = None,
-                    plane: str = "auto") -> CorpusStats:
+                    options: CompressionOptions | None = None) -> CorpusStats:
     """Compress every signal in this process's share of ``paths``.
 
     Returns *global* corpus stats (allgathered across processes).
-    ``plane`` selects the device data plane (see :func:`compress_signals`).
     """
     options = options or CompressionOptions(True, 2, 1, 0)
     local = _local_share(paths)
@@ -264,7 +147,7 @@ def compress_corpus(paths: list[str], out_dir: str | None = None,
         signals = list(hdf5_chunks.read_gzip_signals(path).values())
         if not signals:
             continue
-        streams = compress_signals(signals, options, plane=plane)
+        streams = compress_signals(signals, options)
         files += 1
         reads += len(signals)
         raw += sum(s.nbytes for s in signals)

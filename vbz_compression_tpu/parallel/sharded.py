@@ -1,20 +1,21 @@
 """Data-parallel codec over a device mesh.
 
 The reference is single-threaded CPU (its only parallelism is ``xargs -P``
-over files, reference README.md:36-40); the TPU-native design shards
-*independent chunks* — the natural axis of this workload — across a 1-D
-``data`` mesh with ``jax.sharding``/``shard_map``:
+over files, reference README.md:36-40). Here *independent chunks* — the
+natural axis of this workload — are sharded across a flat 1-D ``data`` mesh
+with ``jax.sharding``/``shard_map``:
 
 - batches of equal-padded chunks are split over the mesh's data axis,
-- each device runs the local StreamVByte encode/decode,
-- compressed frame lengths are all-gathered in chunk order over ICI so every
-  host can assemble the ordered output corpus,
+- each device runs the row-batched StreamVByte plane
+  (:func:`..ops.jax_svb.encode_rows` / :func:`..ops.jax_svb.decode_rows`),
+- compressed frame lengths are all-gathered in chunk order so every host
+  can assemble the ordered output corpus,
 - a ``psum`` of payload bytes gives the global compressed size without host
   round-trips.
 
-Multi-host: the same code runs under ``jax.distributed`` — the mesh spans all
-processes' devices and the all-gather rides ICI within a slice / DCN across
-hosts.
+The cards of one host are joined all to all, so the mesh follows the data
+alone. Multi-host: the same code runs under ``jax.distributed`` — the mesh
+spans all processes' devices.
 """
 
 from __future__ import annotations
@@ -35,34 +36,24 @@ def make_mesh(devices=None, axis_name: str = "data") -> Mesh:
     return Mesh(np.asarray(devices), (axis_name,))
 
 
-def _encode_rows(x: jax.Array, n: jax.Array, integer_size: int,
-                 use_zigzag: bool):
-    """Batched encode (flat-index gathers — vmap would lower to pathological
-    batched gathers on TPU)."""
-    return jax_svb.encode_batch(x, n, integer_size, use_zigzag)
-
-
-def _decode_rows(streams: jax.Array, n: jax.Array, stream_len: jax.Array,
-                 integer_size: int, use_zigzag: bool, out_n: int):
-    return jax_svb.decode_batch_n(streams, n, stream_len, integer_size,
-                                  use_zigzag, out_n)
-
-
 @functools.partial(
-    jax.jit, static_argnames=("mesh", "integer_size", "use_zigzag"))
+    jax.jit, static_argnames=("mesh", "integer_size", "use_zigzag", "version"))
 def batch_encode_sharded(x: jax.Array, lengths: jax.Array, *, mesh: Mesh,
-                         integer_size: int = 2, use_zigzag: bool = True):
+                         integer_size: int = 2, use_zigzag: bool = True,
+                         version: int = 0):
     """Encode a [B, N] batch data-parallel over the mesh.
 
     Returns ``(streams [B, M] u8, stream_lens [B], total_bytes scalar)`` —
     streams stay sharded over the data axis; ``stream_lens`` is all-gathered
     (replicated) so any host can lay out the ordered corpus; ``total_bytes``
-    is the psum'd global compressed size.
+    is the psum'd global compressed size, an int32: keep one call's
+    ``B * M`` under 2**31, as :func:`.multihost.compress_signals` does.
     """
     axis = mesh.axis_names[0]
 
     def local(xs, ns):
-        streams, lens = _encode_rows(xs, ns, integer_size, use_zigzag)
+        streams, lens = jax_svb.encode_rows(xs, ns, integer_size, use_zigzag,
+                                            version)
         gathered = jax.lax.all_gather(lens, axis, tiled=True)
         total = jax.lax.psum(jnp.sum(lens), axis)
         return streams, gathered, total
@@ -77,11 +68,11 @@ def batch_encode_sharded(x: jax.Array, lengths: jax.Array, *, mesh: Mesh,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "integer_size", "use_zigzag", "out_n"))
+    static_argnames=("mesh", "integer_size", "use_zigzag", "out_n", "version"))
 def batch_decode_sharded(streams: jax.Array, lengths: jax.Array,
                          stream_lens: jax.Array, *, mesh: Mesh,
                          integer_size: int = 2, use_zigzag: bool = True,
-                         out_n: int = 4096):
+                         out_n: int = 4096, version: int = 0):
     """Decode a [B, M] batch of streams data-parallel over the mesh.
 
     Returns ``(x [B, out_n], ok [B])`` with ``ok`` all-gathered (replicated)
@@ -90,7 +81,8 @@ def batch_decode_sharded(streams: jax.Array, lengths: jax.Array,
     axis = mesh.axis_names[0]
 
     def local(ss, ns, ls):
-        out, ok = _decode_rows(ss, ns, ls, integer_size, use_zigzag, out_n)
+        out, ok = jax_svb.decode_rows(ss, ns, ls, integer_size, use_zigzag,
+                                      out_n, version)
         return out, jax.lax.all_gather(ok, axis, tiled=True)
 
     return shard_map(
@@ -99,90 +91,6 @@ def batch_decode_sharded(streams: jax.Array, lengths: jax.Array,
         out_specs=(P(axis), P()),
         check_vma=False,
     )(streams, lengths, stream_lens)
-
-
-# ---------------------------------------------------------------------------
-# Pallas-kernel data plane over the mesh (full-row batches). The codec3
-# variant that lived here through round 3 was superseded by the codec5
-# plane below (int8 data plane + batched-grid kernels) and was deleted —
-# see git history if the i32-data-plane formulation is ever needed again.
-# ---------------------------------------------------------------------------
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("mesh", "batch", "block", "flavor",
-                                    "slack"))
-def batch_encode_sharded_pallas5(x2: jax.Array, *, mesh: Mesh, batch: int,
-                                 block: int = 32768, flavor: str = "zz16",
-                                 slack: int = 2048):
-    """codec5 data plane over the mesh: each device encodes its local rows
-    in ONE batched-grid kernel program (``encode_w2_rows_flat`` — the grid
-    walks rows back-to-back with per-row state resets).
-
-    Everything speaks the kernels' FLAT layouts: ``x2`` is the
-    ``(batch * N // 128, 128)`` int16 batch (row-major — a free NumPy
-    reshape of [batch, N] on the host; see :func:`flatten_rows`), sharded
-    on axis 0. [B, N]-shaped device arrays forced XLA relayouts around
-    every kernel call, which was the whole round-3 "batched encode gap"
-    (2-3x; tools/ab_rows_encode.py).
-
-    Returns ``(keys u8 (batch*N//512, 128) sharded, data i8
-    (batch*stride,) sharded, data_lens [batch] replicated, total_bytes
-    scalar, overflow i32 [batch] replicated)``. Rows that exceed the
-    compact slack budget have a nonzero overflow flag — re-encode exactly
-    those rows through the general kernels (the multihost corpus driver
-    does this).
-    """
-    from ..ops import pallas_codec5 as pc5
-
-    axis = mesh.axis_names[0]
-    ndev = mesh.devices.size
-    assert batch % ndev == 0, (batch, ndev)
-
-    def local(xs):
-        keys, data, lens, ovf = pc5.encode_w2_rows_flat(
-            xs, batch // ndev, block=block, flavor=flavor, slack=slack)
-        gathered = jax.lax.all_gather(lens, axis, tiled=True)
-        total = jax.lax.psum(
-            jnp.sum(lens) + jnp.int32(keys.shape[0] * keys.shape[1]),
-            axis)
-        ovf_g = jax.lax.all_gather(ovf, axis, tiled=True)
-        return keys, data, gathered, total, ovf_g
-
-    return shard_map(
-        local, mesh=mesh,
-        in_specs=(P(axis),),
-        out_specs=(P(axis), P(axis), P(), P(), P()),
-        check_vma=False,
-    )(x2)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("mesh", "batch", "block", "flavor",
-                                    "slack"))
-def batch_decode_sharded_pallas5(keys2: jax.Array, data: jax.Array, *,
-                                 mesh: Mesh, batch: int,
-                                 block: int = 32768, flavor: str = "zz16",
-                                 slack: int = 2048):
-    """Inverse of :func:`batch_encode_sharded_pallas5` (caller must have
-    checked the overflow flags were 0); flat layouts throughout — returns
-    the decoded batch as ``(batch * N // 128, 128)`` sharded on axis 0."""
-    from ..ops import pallas_codec5 as pc5
-
-    axis = mesh.axis_names[0]
-    ndev = mesh.devices.size
-    assert batch % ndev == 0, (batch, ndev)
-
-    def local(ks, ds):
-        return pc5.decode_w2_rows_flat(ks, ds, batch // ndev, block=block,
-                                       flavor=flavor, slack=slack)
-
-    return shard_map(
-        local, mesh=mesh,
-        in_specs=(P(axis), P(axis)),
-        out_specs=P(axis),
-        check_vma=False,
-    )(keys2, data)
 
 
 # ---------------------------------------------------------------------------
@@ -197,21 +105,9 @@ def shard_batch(mesh: Mesh, arr: np.ndarray) -> jax.Array:
     return jax.device_put(arr, sharding)
 
 
-def flatten_rows(batch: np.ndarray) -> np.ndarray:
-    """[B, N] host batch -> the Pallas kernels' native (B*N//128, 128)
-    layout (a free row-major view on the host; doing this reshape on
-    DEVICE is a 2-3x relayout — see batch_encode_sharded_pallas5)."""
-    B, N = batch.shape
-    return batch.reshape(B * N // 128, 128)
-
-
-def pad_chunks(chunks: list[np.ndarray], pad_to: int | None = None,
-               mode: str = "zero"):
-    """Pad a ragged list of 1-D arrays into a [B, N] batch + lengths.
-
-    ``mode='edge'`` repeats each chunk's last value into the padding — on
-    the zig-zag paths the pad region then encodes as code-0 bytes, which the
-    Pallas batch codec relies on for exact truncation."""
+def pad_chunks(chunks: list[np.ndarray], pad_to: int | None = None):
+    """Pad a ragged list of 1-D arrays into a zero-filled [B, N] batch +
+    lengths."""
     n = max((c.size for c in chunks), default=0)
     N = pad_to or max(4, -(-n // 4) * 4)
     B = len(chunks)
@@ -219,7 +115,5 @@ def pad_chunks(chunks: list[np.ndarray], pad_to: int | None = None,
     lens = np.zeros(B, dtype=np.int32)
     for i, c in enumerate(chunks):
         out[i, : c.size] = c
-        if mode == "edge" and 0 < c.size < N:
-            out[i, c.size:] = c[-1]
         lens[i] = c.size
     return out, lens

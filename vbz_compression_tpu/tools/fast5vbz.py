@@ -4,8 +4,8 @@ demo tool (reference: ``python/fast5compress/fast5vbz.py:17-74``).
 Copies a fast5 file and rewrites every ``read_*/Raw/Signal`` dataset with the
 vbz filter (one chunk per read), or back to gzip with ``-d``. Unlike the
 reference tool this does not require the HDF5 filter plugin for *reading*
-vbz inputs — raw chunks are decoded by the framework codec — and can batch
-the encode work onto TPU via the JAX backend.
+vbz inputs — raw chunks are decoded by the framework codec — and can run
+the svb stage on the GPU through the device backend.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def compress_fast5(input_path: str, output_path: str, *, decompress: bool,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Compress fast5 signal data with the TPU-native vbz codec")
+        description="Compress fast5 signal data with the vbz codec")
     parser.add_argument("input", help="input fast5 file")
     parser.add_argument("output", help="output fast5 file")
     parser.add_argument("-d", "--decompress", action="store_true",
@@ -106,23 +106,15 @@ def main(argv=None) -> int:
     parser.add_argument("--vbz-version", type=int, default=0, choices=(0, 1))
     parser.add_argument("--zstd-level", type=int, default=1)
     parser.add_argument("--backend",
-                        choices=("auto", "scalar", "jax", "pallas",
-                                 "native"),
+                        choices=("auto", "device", "native", "scalar"),
                         default="auto",
-                        help="auto = Pallas on TPU, else native C++, else "
-                             "the NumPy oracle (api.default_backend)")
+                        help="auto = the device plane on a GPU, else native "
+                             "C++, else the NumPy oracle "
+                             "(api.default_backend)")
     args = parser.parse_args(argv)
 
-    if args.backend == "auto":
-        backend = None  # api resolves: pallas-on-TPU -> native -> scalar
-    elif args.backend == "jax":
-        from ..models.codec import jax_backend as backend
-    elif args.backend == "pallas":
-        from ..models.codec import pallas_backend as backend
-    elif args.backend == "native":
-        from ..native_backend import native_backend as backend
-    else:
-        from ..ops import scalar as backend
+    backend = None if args.backend == "auto" else \
+        api._backend_by_name(args.backend)
 
     compress_fast5(args.input, args.output, decompress=args.decompress,
                    vbz_version=args.vbz_version, zstd_level=args.zstd_level,

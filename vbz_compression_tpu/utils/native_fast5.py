@@ -2,7 +2,7 @@
 
 The native reader (``native/fast5_reader.cpp``) dlopens libhdf5 at runtime
 and reads *raw, still-compressed* HDF5 chunks plus the filter metadata, so
-bulk corpus jobs can feed the TPU codec without h5py (and its per-chunk
+bulk corpus jobs can feed the device codec without h5py (and its per-chunk
 Python filter round trips) in the loop. Mirrors the role of the reference's
 ``vbz_plugin/hdf5_dynamic.h`` late-binding shim (dead code there; live
 production path here).

@@ -2,7 +2,7 @@
 
 The reference's observability is a google-benchmark harness plus a
 compile-time ``VBZ_DEBUG`` checksum printer (reference:
-``vbz_plugin/vbz_plugin.cpp:20-46``). The TPU-native equivalents:
+``vbz_plugin/vbz_plugin.cpp:20-46``). The equivalents here:
 
 - :func:`trace` — context manager around ``jax.profiler`` emitting an xprof
   trace directory for a codec region.

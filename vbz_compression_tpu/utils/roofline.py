@@ -1,108 +1,64 @@
-"""Speed-of-light (roofline) accounting for the codec kernels.
+"""Speed-of-light (roofline) accounting for the codec on the device.
 
 The reference counts raw bytes/s per config (vbz/perf/vbz_perf.cpp:45-46,
-101-102); on TPU the analogous yardstick is the fraction of attainable HBM
-bandwidth each kernel reaches. BASELINE.md's north star is phrased as
-"encode+decode GB/s/chip at speed-of-light", so bench.py emits, per content
-tier:
-
-- the kernel's HBM traffic per input byte (from the kernel geometry —
-  input stream, key bytes, i8 data-section DMA including the staging
-  extension; see :func:`w2_traffic_factor`),
-- the bandwidth-bound ceiling ``roofline = measured_copy_bw / factor``,
-- ``pct_of_roofline = measured / roofline``.
-
-Two denominators are reported: the v5e datasheet peak (819 GB/s of total
-HBM traffic) and the bandwidth a Pallas block-copy kernel actually achieves
-on the current chip window (:func:`measure_copy_gbps` — measured 2026-08-21
-at ~670-730 GB/s r+w for HBM-resident sizes; 64 MiB arrays fit VMEM and
-read absurdly high, so the probe must use >=256 MiB). The copy number is
-the honest attainable bound: it rides the same blocked HBM->VMEM->HBM path
-the codec kernels use, under the same multi-tenant window.
+101-102). On an accelerator the codec is bandwidth-bound, so the yardstick
+is the share of memory bandwidth a kernel reaches: the bytes the algorithm
+must move (:func:`svb_bytes_moved`) over its kernel time, against two
+denominators — the device's published peak (:func:`hbm_peak_gbps`) and a
+plain XLA copy measured in the same process (:func:`measure_copy_gbps`).
 """
 
 from __future__ import annotations
 
-import functools
 import time
+
+import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-# v5e datasheet: 16 GiB HBM2E at 819 GB/s (total traffic).
-HBM_PEAK_GB_S = 819.0
-
-_AG = 4096  # i8 DMA granularity (pallas_codec5.AG)
-
-
-def _ext_bytes(slack: int) -> int:
-    """Staging extension of the codec5 data plane (pallas_codec5._ext_bytes):
-    slack + alignment headroom rounded to the 4096-byte i8 tile."""
-    return -(-(slack + _AG) // _AG) * _AG
+# Published device-memory bandwidth by ``jax.Device.device_kind``.
+# NVIDIA H200 Tensor Core GPU data sheet (SXM): 141 GB HBM3e at 4.8 TB/s.
+HBM_PEAK_GB_S = {
+    "NVIDIA H200": 4800.0,
+}
 
 
-def w2_traffic_factor(block: int, slack: int, itemsize: int = 2) -> float:
-    """HBM bytes moved per *input* byte by the codec5 W2 kernels.
-
-    Encode: reads ``itemsize`` bytes/value (the int16 stream), writes
-    1/4 key byte/value and one (block + ext)/block staged data byte/value
-    (the DMA moves the full staging window, slack + alignment headroom
-    included, whether or not the block produced extra bytes). Decode moves
-    the same bytes in the mirrored directions (keys + staged data windows
-    in, decoded int16 out), so one factor serves both.
-    """
-    per_value = itemsize + 0.25 + (block + _ext_bytes(slack)) / block
-    return per_value / itemsize
+def hbm_peak_gbps(device_kind: str) -> float:
+    """Published memory bandwidth (GB/s) of ``device_kind``; a device not
+    in the table is an error, not a default."""
+    try:
+        return HBM_PEAK_GB_S[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published memory bandwidth for device kind "
+            f"{device_kind!r}; add it to HBM_PEAK_GB_S with its source") \
+            from None
 
 
-def _copy_kernel(x_ref, o_ref):
-    o_ref[:] = x_ref[:]
+def svb_bytes_moved(n_values: int, itemsize: int, stream_bytes: int) -> int:
+    """Least device-memory traffic of one direction of the svb stage: the
+    raw integers in and the stream out (encode), or the reverse (decode)."""
+    return n_values * itemsize + stream_bytes
 
 
-@functools.partial(jax.jit, static_argnames=("rows",))
-def copy_blocked(x: jax.Array, rows: int = 8192):
-    """Copy a [R, 128] i32 array through VMEM blocks of (rows, 128)."""
-    R = x.shape[0]
-    return pl.pallas_call(
-        _copy_kernel,
-        grid=(R // rows,),
-        in_specs=[pl.BlockSpec((rows, 128), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((rows, 128), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-    )(x)
+@jax.jit
+def _copy(x):
+    return x + 1
 
 
-def _fence(arr):
-    return float(jnp.sum(arr.astype(jnp.int32).ravel()[:8])[None][0])
-
-
-def measure_copy_gbps(mib: int = 256, rows: int = 8192,
-                      slopes: int = 5) -> float:
-    """Streaming HBM bandwidth (GB/s, read+write counted) of the blocked
-    copy on the current chip window, slope-timed (bench.py conventions:
-    block_until_ready returns early on this backend; only host pulls
-    fence). ``mib`` must be HBM-resident (>= 256 MiB) — smaller arrays sit
-    in VMEM and measure VMEM bandwidth instead."""
-    n = mib * (1 << 20) // 4
-    x = jax.device_put(jnp.arange(n, dtype=jnp.int32).reshape(n // 128, 128))
-    _fence(copy_blocked(x, rows=rows))
-
-    def run(r):
-        t0 = time.perf_counter()
-        last = None
-        for _ in range(r):
-            last = copy_blocked(x, rows=rows)
-        _fence(last)
-        return time.perf_counter() - t0
-
-    # Delta of 200 passes = ~150 ms of differenced device time at the
-    # ~700 GB/s this measures — comfortably above fence-RPC variance.
-    r_lo, r_hi = 22, 222
-    samples = sorted(s for s in ((run(r_hi) - run(r_lo)) / (r_hi - r_lo)
-                                 for _ in range(slopes)) if s > 0)
-    assert len(samples) >= 2, "chip window too noisy for a copy slope"
-    return 2 * n * 4 / max(samples[1], 1e-9) / 1e9
+def measure_copy_gbps(mib: int = 1024, reps: int = 10,
+                      rounds: int = 5) -> float:
+    """Bandwidth (GB/s, read and write counted) of a plain XLA copy of
+    ``mib`` MiB of int32: ``reps`` calls back to back, timed to
+    ``block_until_ready`` of the last, median over ``rounds``."""
+    x = jnp.arange(mib * (1 << 20) // 4, dtype=jnp.int32)
+    jax.block_until_ready(_copy(x))
+    times = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _ in range(reps):
+            y = _copy(x)
+        jax.block_until_ready(y)
+        times.append((time.perf_counter() - t) / reps)
+    return 2 * x.nbytes / float(np.median(times)) / 1e9
